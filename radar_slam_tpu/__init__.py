@@ -1,6 +1,6 @@
-"""radar_slam_tpu: TPU-native multi-channel FMCW radar ego-motion framework.
+"""radar_slam_tpu: multi-channel FMCW radar ego-motion framework.
 
-A from-scratch JAX / XLA / Pallas / pjit re-design of the capabilities of the
+A from-scratch JAX / XLA re-design of the capabilities of the
 reference implementation ``zaidcontractor/radar-slam`` (see SURVEY.md):
 
 - ``core``      typed config, geometry, static-shape pytree types
@@ -11,7 +11,7 @@ reference implementation ``zaidcontractor/radar-slam`` (see SURVEY.md):
 - ``pipeline``  end-to-end per-frame step, artifact pipeline, streaming runtime
 - ``parallel``  device meshes, frame-parallel SPMD, distributed pose-graph GN
 - ``io``        RadarScenes ingest, synthetic scenes, artifact schema
-- ``ops``       Pallas TPU kernels + jnp references
+- ``ops``       window functions
 - ``utils``     profiling, logging, checkpointing
 - ``viz``       host-side plotting / analysis
 """

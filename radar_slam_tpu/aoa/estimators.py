@@ -1,12 +1,12 @@
 """Batched angle-of-arrival estimators: beamforming, MUSIC, ESPRIT.
 
-TPU-first re-design of ``AngleEstimator``
+Re-design of ``AngleEstimator``
 (``src/angle_estimation/angle_estimation.py:23-309``).  The reference
 processes one target at a time with a Python loop over the angle grid; here
 all K detections are estimated at once:
 
 - beamforming (``:227-249``): the whole spectrum is one complex matmul
-  |S A^H|^2 on the MXU  (S [K, A] signatures, A [G, A] steering matrix);
+  |S A^H|^2  (S [K, A] signatures, A [G, A] steering matrix);
 - MUSIC (``:109-176``): rank-1 covariance per signature -> batched ``eigh``
   over [K, A, A] -> noise-subspace projector -> pseudo-spectrum as matmuls;
 - ESPRIT (``:178-225``): batched small-matrix subspace rotation.
@@ -66,10 +66,8 @@ def _refine_peak(spectrum: jax.Array, grid_deg: jax.Array) -> jax.Array:
     idx = jnp.argmax(spectrum, axis=-1)
     im = jnp.clip(idx - 1, 0, g - 1)
     ip = jnp.clip(idx + 1, 0, g - 1)
-    # Masked reductions instead of gathers: TPU gather ops carry ~35-50 us
-    # fixed overhead each and even a single batched take_along_axis of the
-    # three taps traced at ~150 us/64-frame batch; three one-hot weighted
-    # sums over the [K, G] spectrum are pure VPU work and fuse with the
+    # Masked reductions instead of gathers: three one-hot weighted sums
+    # over the [K, G] spectrum are elementwise work that fuses with the
     # argmax that produced idx.
     cols = jnp.arange(g)[None, :]
     tap = lambda i: jnp.sum(jnp.where(cols == i[..., None], spectrum, 0.0),
@@ -88,7 +86,7 @@ def _refine_peak(spectrum: jax.Array, grid_deg: jax.Array) -> jax.Array:
 
 def beamforming_spectrum(signatures: jax.Array, steering: jax.Array) -> jax.Array:
     """Conventional beamforming power spectra [K, G] = |S A^H|^2
-    (angle_estimation.py:239-249), as one MXU matmul."""
+    (angle_estimation.py:239-249), as one matmul."""
     resp = signatures @ jnp.conj(steering).T          # [K, G]
     return (resp.real ** 2 + resp.imag ** 2)
 
@@ -179,9 +177,8 @@ def rank1_eigenvalues(signatures: jax.Array) -> jax.Array:
     The MDL model-order stage only consumes eigenvalues, and the
     production front end builds R from one snapshot (reference parity:
     angle_estimation.py:127) -- so the batched 8x8 ``eigh`` the pipeline
-    ran for it computed exactly this constant spectrum the slow way
-    (traced at 1,140 us/64-frame batch, the single largest op after the
-    front-end kernel; scripts/trace_batched.py).  ``mdl_model_order``'s
+    ran for it computed exactly this constant spectrum the slow way.
+    ``mdl_model_order``'s
     rank-1 guard yields the identical model order either way; the
     analytic form is exact where eigh carries ~1e-8 float noise."""
     K, A = signatures.shape
@@ -208,10 +205,8 @@ def _rank2_signal_eigvecs(signatures: jax.Array, forward_backward: bool):
     (s s^H + t t^H)/2 with t = J conj(s) -- rank <= 2, so both nonzero
     eigenvectors live in span{s, t} and come from a 2x2 Hermitian
     eigenproblem with a closed form.  This replaces a [K]-batched A x A
-    ``eigh`` (the same trap :func:`rank1_eigenvalues` removed from MDL at
-    r04: 1,140 us/64f computing an analytic answer the slow way; the
-    MUSIC eigh was the last one standing, ~half of the 657 us/3200-sig
-    estimator cost).
+    ``eigh`` (the same trap :func:`rank1_eigenvalues` removed from MDL:
+    a batched eigh computing an analytic answer the slow way).
 
     Returns (E [K, 2, A] orthonormal in-span eigenvectors, descending;
     rank [K] effective rank {1, 2}).  Where the FB pair is colinear

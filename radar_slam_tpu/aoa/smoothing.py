@@ -200,9 +200,8 @@ def smooth_windowed(det_keys: jax.Array, angles_deg: jax.Array,
 
     # --- follow the chain W-1 hops, gathering raw (angle, conf) entries ----
     # All per-hop lookups (angle, confidence, predecessor pointers, found
-    # flag) ride ONE stacked gather: each separate fancy-indexing op costs
-    # ~35-50 us of fixed TPU gather overhead (scripts/trace_batched.py),
-    # and the scalar channels round-trip f32 exactly (values < 2^24).
+    # flag) ride ONE stacked gather instead of one gather op each, and the
+    # scalar channels round-trip f32 exactly (values < 2^24).
     src = jnp.stack([angles_deg, confidences,
                      pred_f.astype(jnp.float32),
                      pred_j.astype(jnp.float32),

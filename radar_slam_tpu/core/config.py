@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native FMCW radar ego-motion framework.
+"""Typed configuration for the FMCW radar ego-motion framework.
 
 One source of truth replacing the six duplicated ``radar_params`` dicts in the
 reference (``src/radar_signal/dechirp.py:371-378``,
@@ -314,108 +314,16 @@ class PipelineConfig:
     # Slow-time window: the reference windows fast time only, leaving -13 dB
     # Doppler sidelobes that duplicate strong targets; we window both axes.
     doppler_window: Optional[str] = "hann"
-    # Route the dechirp and CFAR stages through the Pallas TPU kernels
-    # (ops/dechirp_pallas.py, ops/cfar_pallas.py) instead of the XLA path.
-    # Both are numerically identical; XLA already fuses these chains into the
-    # surrounding program, so it is the default.
-    use_pallas: bool = False
-    # RDS transform backend: "fft" (XLA FFT), "matmul" (DFTs as XLA matmuls
-    # with dechirp/window/DC folded into the DFT matrices), "pallas"
-    # (fused single-kernel: frame resident in VMEM, both DFT matmuls on the
-    # MXU, one HBM read + one write), or "fused" (the complex RDS cube is
-    # NEVER built: the detection stage runs on a fused Pallas
-    # dechirp->DFT->power kernel and spatial signatures are recomputed at
-    # f32 for only the detected cells).  See signal/rds.py.
+    # RDS transform: "fft" (XLA FFT), "matmul" (both DFTs as XLA matmuls
+    # with dechirp/window/DC folded into the DFT matrices), or "fused"
+    # (detection runs on the power map ``mean_a |rds|^2`` alone and spatial
+    # signatures are recomputed at f32 for only the detected cells, so no
+    # complex RDS cube is returned).  See signal/rds.py.
     fft_mode: str = "fft"
-    dft_precision: str = "highest"       # matmul/pallas MXU precision
-    # MXU precision of the fused power kernel's range DFT ("default" = bf16:
-    # ~0.013 dB power-map error, inside every CFAR margin; signatures always
-    # recompute at f32).
-    power_precision: str = "default"
-    # Doppler-DFT precision / layout of the fused power kernels
-    # ("highest" = Mosaic 6-pass, "high" = manual bf16x3 f32-accurate at
-    # ~half the cost, "default" = bf16; layout "loop" = per-antenna
-    # [D,C]@[C,S] dots, "wide" = one [D,C]@[C,A*S] dot after a VMEM
-    # relayout).  Defaults are the chip-measured winners
-    # (scripts/bench_fused.py --sweep-doppler).
-    doppler_precision: str = "highest"
-    # Same knob for the cube-free synthesis kernels (synth_in_kernel):
-    # that path's accuracy tests pin "high" (f32-accurate bf16x3), which
-    # is also its chip-proven operating point.
-    synth_doppler_precision: str = "high"
-    doppler_layout: str = "loop"
-    # The layout choice inverts between the kernels (chip-measured,
-    # scripts/bench_doppler_sweep.py): "wide" loses end-to-end for the
-    # cube-input kernel but is ~13% faster inside the cube-free kernel
-    # (798 vs 916 us/64-frame batch at "high"), where the synthesis
-    # matmul already leaves the planes in a layout the concat consumes.
-    synth_doppler_layout: str = "wide"
-    # Cube-free synthetic front end (fft_mode="fused" + scatterer input
-    # only): synthesize the ADC cube INSIDE the power/signature kernels
-    # (ops/synthpower_pallas.py) so it never touches HBM -- the synthesis
-    # factors are rank-1 separable and cheaper to recreate on the MXU than
-    # to move.  Same physics; AWGN comes from the in-kernel Mosaic PRNG
-    # (same statistics as jax.random.normal, different bits).  Requires a
-    # real TPU backend; other backends fall back to the materialized path.
-    synth_in_kernel: bool = False
-    # In-kernel Gaussian generator (synth_in_kernel paths).  "fast" keeps
-    # the exact Rayleigh radius sqrt(-2 log u) -- the magnitude CFAR and
-    # the power map see is exactly normal-distributed including tails --
-    # and replaces Box-Muller's cos/sin direction (measured ~265 of its
-    # 329 us/64-frame batch) with a normalized 45deg-staggered Irwin-Hall
-    # pair sum: 2x cheaper, statistically indistinguishable in a
-    # 1.6M-sample validation (ops/synthpower_pallas.py:_standard_normals;
-    # VERDICT r04 item 3a).  "box_muller" = the r04 stream (bit-level
-    # reproduction of earlier rounds' realizations).
-    noise_impl: str = "fast"
-    # Noise-injection domain for the ONE-PASS kernel.  "range_freq"
-    # (default) draws the AWGN directly in the range-frequency domain:
-    # for iid time noise, DFT(n . w_periodic) is distributionally an iid
-    # plane circularly convolved with the window's exact spectral taps (3
-    # for Hann) -- which frees the synthesis->DFT chain to reassociate as
-    # e_ac^T @ ((e_fast . mix) @ W), replacing the [A*C, S] @ [S, S] range
-    # DFT of the materialized cube with two smaller matmuls (Z chain 769
-    # -> 326 us/64f measured).  Documented deviation: the noise is shaped
-    # by the PERIODIC window variant (O(1/S) per-sample difference from
-    # the symmetric one the signal uses; <0.4% on the noise covariance).
-    # "time" restores the r04/r05a construction bit-for-bit.  The
-    # three-dispatch fallback kernels are always time-domain.
-    noise_domain: str = "range_freq"
-    # Top-K selection on the one-pass kernel's masked score map.
-    # "two_stage" = segmented exact selection (topk_two_stage): at the
-    # r05c operating point it wins e2e in four of four interleaved
-    # one-process trials (+0.5% to +9%, median +3.4%) -- the program got
-    # fast enough that lax.top_k's full-sort lowering stopped hiding
-    # behind other work.  "sort" = plain lax.top_k (the r04 default).
-    frontend_topk: str = "two_stage"
-    # Synthesis-factor layout for the one-pass kernel.  "split" (default)
-    # ships the per-axis phase tables (ant [Sc, A], dopp [Sc, C], coarse
-    # [Sc, S/B], fine [Sc, B=128]; signal/synth.py:SplitFactors) and
-    # recomposes e_ac^T / e_fast in VMEM: ~3.4x less factor HBM per frame
-    # and ~2.4x fewer host-side exp-cycle evaluations than materializing
-    # the dense [Sc, A*C] + [Sc, S] planes in XLA (the factor stage the
-    # r05 trace put at ~8% of the batched step).  Measured (chip,
-    # interleaved paired 1024-frame trials): -1.0 ms min / -1.4 ms median
-    # per 1024 frames (~2-4% of device time) at equal accuracy (RMSE
-    # 0.124 vs 0.122 m); a B=16 selection-matmul variant measured a wash
-    # (K=16/25-class MXU passes ate the savings) and was replaced by the
-    # register-aligned B=128 broadcast composition.  "dense" = the
-    # materialized r04/r05 layout, bit-identical to earlier rounds.
-    frontend_factors: str = "split"
-    # One-pass front end (synth_in_kernel only): ONE Pallas program per
-    # frame runs synthesis + AWGN + range DFT (persisting Z = x @ W_rng,
-    # the signatures' sufficient statistic) + Doppler power + CA-CFAR /
-    # local-max masking (ops/frontend_pallas.py); XLA then top-K's the
-    # masked score map and gathers signatures as exact Z columns.  The
-    # noise stream is generated once instead of once per kernel, the
-    # synthesis matmul and range DFT run once instead of twice, and the
-    # CFAR stage stops moving ~410 MB/batch of XLA reduce_window
-    # intermediates.  Falls back to the three-dispatch path off-TPU or
-    # when the detector needs OS-CFAR (the kernel implements CA /
-    # fixed-threshold only).
-    frontend_one_pass: bool = True
+    dft_precision: str = "highest"       # matmul-mode DFT precision
     # Synthesis model used when the pipeline starts from scatterers:
-    # "tpu" (physics-fixed, signal/synth.py module docstring) or "reference"
+    # "tpu" (physics-fixed, signal/synth.py module docstring; the name is
+    # historical and does not refer to a device) or "reference"
     # (reproduces the reference simulator's quirks -- no slow-time Doppler
     # ramp, linspace time base; see synthesize_frame).  "reference" exists so
     # the solver can be validated against data generated by a model it does
@@ -446,20 +354,9 @@ def complete_analysis_config() -> PipelineConfig:
     corridor workload CFAR cuts velocity error from -1.6+-2.2 m/s to
     -0.015+-0.018 m/s).
 
-    fft_mode="fused": detection runs on the fused Pallas power kernel (the
-    complex RDS cube is never materialized; ops/power_pallas.py).  Measured
-    on chip (scripts/bench_fused.py): power stage 578 us vs 1751 us per
-    64-frame batch isolated, e2e 12.9k vs 11.6k frames/s, pose error
-    unchanged (0.526 vs 0.538 m).
-
-    synth_in_kernel=True: on TPU backends the synthetic-capture path also
-    folds cube synthesis + AWGN into the kernels (the ADC cube never
-    touches HBM; ops/synthpower_pallas.py) -- chip-measured ~14-16k vs
-    ~12-14k frames/s e2e at equal-or-better pose error
-    (scripts/bench_doppler_sweep.py); other backends fall back to the
-    materialized path automatically.  doppler_precision="high" (manual
-    bf16x3) is f32-accurate (0.0001 dB strong-cell error) and ~12% faster
-    e2e than the Mosaic 6-pass "highest"."""
+    fft_mode="fused": detection runs on the power map and signatures are
+    recomputed for only the detected cells (signal/rds.py:rds_power,
+    detection_signatures)."""
     return PipelineConfig(
         radar=RadarConfig(num_chirps=32, noise_power=1e-6),
         detection=DetectionConfig(cfar_train_cells=8, guard_cells=2,
@@ -471,8 +368,6 @@ def complete_analysis_config() -> PipelineConfig:
                                 regularization_weight=0.01),
         pose=PoseConfig(planar=True),
         fft_mode="fused",
-        doppler_precision="high",
-        synth_in_kernel=True,
     )
 
 

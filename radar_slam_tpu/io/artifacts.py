@@ -18,9 +18,9 @@ import json
 from pathlib import Path
 from typing import Dict, Optional
 
+import jax
 import numpy as np
 
-from radar_slam_tpu.utils.host import device_get
 from radar_slam_tpu.core.config import PipelineConfig, RadarConfig
 from radar_slam_tpu.core.types import Detections, Targets, Trajectory
 
@@ -45,7 +45,7 @@ def frame_name(i: int) -> str:
 
 def save_raw_frame(path: Path, i: int, signals) -> Path:
     f = path / f"{frame_name(i)}.npy"
-    np.save(f, device_get(signals))
+    np.save(f, jax.device_get(signals))
     return f
 
 
@@ -75,8 +75,8 @@ def save_synthesis_metadata(path: Path, radar: RadarConfig,
 
 def save_rds_frame(path: Path, i: int, rds, detections: Detections,
                    power_db: Optional[np.ndarray] = None) -> Path:
-    np.save(path / f"{frame_name(i)}_rds.npy", device_get(rds))
-    d = {k: device_get(v) for k, v in detections._asdict().items()}
+    np.save(path / f"{frame_name(i)}_rds.npy", jax.device_get(rds))
+    d = {k: jax.device_get(v) for k, v in detections._asdict().items()}
     if power_db is not None:
         d["power_spectrum_db"] = np.asarray(power_db)
     np.savez(path / f"{frame_name(i)}_peaks.npz", **d)
@@ -94,7 +94,7 @@ def load_rds_frame(path: Path, i: int):
 
 def save_angles_frame(path: Path, i: int, targets: Targets) -> Path:
     f = path / f"{frame_name(i)}_angles.npz"
-    np.savez(f, **{k: device_get(v) for k, v in targets._asdict().items()})
+    np.savez(f, **{k: jax.device_get(v) for k, v in targets._asdict().items()})
     return f
 
 

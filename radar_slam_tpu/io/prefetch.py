@@ -12,10 +12,10 @@ uploaded chunks runs concurrently with the next chunk's DMA.  The drivers
 here carry the sequential ``FrameState`` across chunked ``lax.scan``
 programs, so results are bit-identical to the one-shot
 ``pipeline.frame.process_sequence`` (asserted in
-``tests/test_prefetch.py``); measured overlap on the chip:
-``scripts/bench_prefetch.py`` -> docs/BENCHMARKS.md.
+``tests/test_prefetch.py``); ``scripts/bench_prefetch.py`` measures the
+overlap.
 
-Replaces (TPU-natively) the reference's synchronous per-frame loads in
+Replaces the reference's synchronous per-frame loads in
 ``results/ground_truth_comparison/radarscenes_complete_analysis.py:161-201``
 (h5py reads interleaved with compute on the same thread).
 """

@@ -6,7 +6,7 @@ Parity with ``src/datasets/radarscenes_loader.py`` (class
 scatterer conversion (``:226-254``), dataset statistics (``:324`` /
 ``analyze_radarscenes_dataset:412``).
 
-TPU-first differences:
+Differences from the reference:
 - frame windowing and odometry lookup are vectorized (``np.searchsorted``
   over the full measurement arrays instead of a per-window pandas filter);
 - the output of :meth:`frames_as_batches` is a stacked, padded

@@ -106,9 +106,7 @@ def associate_targets(current: Targets, previous: Targets, dt: float | jax.Array
     # Temporal phase diff on reference antenna 0:
     # angle(s_t[0] * conj(s_{t-1}[0]))  (velocity_solver_improved.py:150).
     # Every previous-frame lookup (signature, position, confidence) rides
-    # ONE stacked gather at prev_idx -- separate fancy-indexing ops cost
-    # ~35-50 us each in fixed TPU gather overhead
-    # (scripts/trace_batched.py).
+    # ONE stacked gather at prev_idx instead of one gather op each.
     prev_sig0 = previous.spatial_signature[:, 0]
     prev_stack = jnp.concatenate(
         [jnp.real(prev_sig0)[:, None], jnp.imag(prev_sig0)[:, None],

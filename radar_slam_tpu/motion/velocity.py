@@ -45,6 +45,13 @@ from radar_slam_tpu.core.config import VelocityConfig
 from radar_slam_tpu.core.geometry import wrap_angle
 from radar_slam_tpu.core.types import Associations, MotionEstimate
 
+# Every matmul of the solve runs in full f32.  The phase rows carry
+# 4 pi dt / lambda ~ 320 rad per m/s, so a TF32 product (~1e-3 relative,
+# what DEFAULT gives an f32 dot on an NVIDIA GPU) moves the wrapped phase
+# residual by radians; on the H100 that put the solve 8.5 mm/s off the
+# CPU's where full f32 holds it to the 1 mm/s tolerance.
+_mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+
 
 def design_matrix(assoc: Associations) -> jax.Array:
     """Rows [K, 6] = [d_i, r_i x d_i] (the radial-rate Jacobian).
@@ -91,9 +98,9 @@ def _chol_solve_unrolled(H: jax.Array, g: jax.Array) -> jax.Array:
 
     H [..., n, n], g [..., n] for small static n (3 or 6 here).  Every
     operation is a batched SCALAR op, so the solve vectorizes perfectly over
-    leading batch axes on the VPU -- ``jnp.linalg.solve``'s batched LU was
-    the dominant cost of the whole velocity stage (20 us/frame; the
-    pipeline's small-solve chain runs ~14 of these per frame)."""
+    leading batch axes -- ``jnp.linalg.solve``'s batched LU was the
+    dominant cost of the whole velocity stage (the pipeline's small-solve
+    chain runs ~14 of these per frame)."""
     n = H.shape[-1]
     L = [[None] * n for _ in range(n)]
     for i in range(n):
@@ -124,8 +131,8 @@ def _ridge_solve(A: jax.Array, b: jax.Array, w: jax.Array, prior: jax.Array,
                  x_prior: jax.Array, t_weight: jax.Array) -> jax.Array:
     """Solve (A^T W A + prior + t I) x = A^T W b + t x_prior."""
     Aw = A * w[:, None]
-    H = A.T @ Aw + prior + t_weight * jnp.eye(6, dtype=A.dtype)
-    g = Aw.T @ b + t_weight * x_prior
+    H = _mm(A.T, Aw) + prior + t_weight * jnp.eye(6, dtype=A.dtype)
+    g = _mm(Aw.T, b) + t_weight * x_prior
     return _chol_solve_unrolled(H + 1e-9 * jnp.eye(6, dtype=A.dtype), g)
 
 
@@ -181,9 +188,9 @@ def solve_doppler(assoc: Associations, cfg: VelocityConfig,
         prior = _prior_matrix(cfg, full)
         # Unrolled (3 static iterations): a fori_loop of tiny ops serializes
         # the solve into latency-bound device steps; unrolled, XLA fuses the
-        # whole chain (the solve stage dropped ~2x, scripts/profile_stages).
+        # whole chain.
         for _ in range(3):
-            res = b - A @ x
+            res = b - _mm(A, x)
             w = w0 * _huber_weights(res, cfg.doppler_huber_mps)
             x = _ridge_solve(A, b, w, prior, x_prior, t_w)
         return x
@@ -217,7 +224,7 @@ def refine_phase(assoc: Associations, x0: jax.Array, dt: jax.Array,
     scale = 4.0 * jnp.pi * jnp.float32(dt) / jnp.float32(lambda_c)
     A = scale * assoc.direction                                   # [K, 3]
     lever = jnp.cross(assoc.position, assoc.direction)            # [K, 3]
-    phi = assoc.temporal_phase_diff - scale * (lever @ x0[3:])
+    phi = assoc.temporal_phase_diff - scale * _mm(lever, x0[3:])
     w0 = jnp.where(assoc.valid, jnp.maximum(assoc.weight, 1e-3), 0.0)
     t_w = jnp.float32(cfg.temporal_weight * cfg.regularization_weight
                       if prev_motion is not None else 0.0)
@@ -230,11 +237,11 @@ def refine_phase(assoc: Associations, x0: jax.Array, dt: jax.Array,
     # Unrolled static GN iterations (see solve_doppler.irls for why).
     v = x0[:3]
     for _ in range(cfg.gn_iterations):
-        res = wrap_angle(phi - A @ v)
+        res = wrap_angle(phi - _mm(A, v))
         w = w0 * _huber_weights(res, cfg.huber_delta)
         Aw = A * w[:, None]
-        H = A.T @ Aw + (scale * scale) * (prior3 + t_w * eye3)
-        g = Aw.T @ res + (scale * scale) * t_w * (v_prior - v)
+        H = _mm(A.T, Aw) + (scale * scale) * (prior3 + t_w * eye3)
+        g = _mm(Aw.T, res) + (scale * scale) * t_w * (v_prior - v)
         dv = _chol_solve_unrolled(H + 1e-6 * (scale * scale) * eye3, g)
         v = v + dv
     return jnp.concatenate([v, x0[3:]])
@@ -250,7 +257,7 @@ def dealias_doppler(assoc: Associations, x_ref: jax.Array,
     prediction -[d, r x d].x_ref.  Any x_ref accurate to within one
     half-span (~9.7 m/s at the reference PRI) recovers the true vr exactly."""
     span = jnp.float32(2.0 * v_unambiguous)
-    vr_pred = -(design_matrix(assoc) @ x_ref)
+    vr_pred = -_mm(design_matrix(assoc), x_ref)
     k = jnp.round((vr_pred - assoc.vr_mps) / span)
     return assoc._replace(vr_mps=assoc.vr_mps + k * span)
 
@@ -290,7 +297,7 @@ def solve_velocity(assoc: Associations, dt: jax.Array, lambda_c: float,
                 else jnp.zeros(6, jnp.float32))
         cands = jnp.stack([prev, jnp.zeros(6, jnp.float32),
                            smart_initial_guess(assoc, cfg)])        # [3, 6]
-        pred = -(cands @ design_matrix(assoc).T)                    # [3, K]
+        pred = -_mm(cands, design_matrix(assoc).T)                  # [3, K]
         res = assoc.vr_mps[None, :] - pred
         folded = res - span * jnp.round(res / span)
         w = jnp.where(assoc.valid, 1.0, 0.0)
@@ -318,7 +325,8 @@ def solve_velocity(assoc: Associations, dt: jax.Array, lambda_c: float,
 
     # Residual statistics on the phase observable (velocity_solver.py:277-284).
     scale = 4.0 * jnp.pi * jnp.float32(dt) / jnp.float32(lambda_c)
-    res = wrap_angle(assoc.temporal_phase_diff - scale * (design_matrix(assoc) @ x))
+    res = wrap_angle(assoc.temporal_phase_diff
+                     - scale * _mm(design_matrix(assoc), x))
     res = jnp.where(assoc.valid, res, 0.0)
     denom = jnp.maximum(n, 1)
     rmse = jnp.sqrt(jnp.sum(res * res) / denom)

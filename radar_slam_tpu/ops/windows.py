@@ -43,34 +43,3 @@ def get_window(name: str, n: int, periodic: bool = False) -> jax.Array:
         return _WINDOWS[name](n, periodic)
     except KeyError:
         raise ValueError(f"Unknown window type: {name}") from None
-
-
-def cosine_coeffs(name: str):
-    """Cosine-sum coefficients (a_0, a_1, ...) of a named window; the
-    PERIODIC variant's circular DFT is then exactly the 2*len-1 taps
-    m_hat[0] = a_0 * S, m_hat[+-k] = (-1)^k * a_k * S / 2 -- the basis of
-    the spectral-domain noise injection (ops/frontend_pallas.py,
-    noise_domain="range_freq")."""
-    if name == "rect" or name is None:
-        return (1.0,)
-    table = {"hann": (0.5, 0.5), "hamming": (0.54, 0.46),
-             "blackman": (0.42, 0.5, 0.08)}
-    try:
-        return table[name]
-    except KeyError:
-        raise ValueError(f"Unknown window type: {name}") from None
-
-
-def window_freq_taps(name: str):
-    """((offset, coeff), ...) circular-convolution taps such that
-    DFT(n * w_periodic) = DFT(n) (*) taps for iid n -- i.e. the
-    range-frequency representation of windowing, normalized so the
-    convolution of unit-variance iid spectra has the window's energy
-    (taps are m_hat / S)."""
-    a = cosine_coeffs(name)
-    taps = [(0, float(a[0]))]
-    for k in range(1, len(a)):
-        c = float(((-1.0) ** k) * a[k] / 2.0)
-        taps.append((k, c))
-        taps.append((-k, c))
-    return tuple(taps)

@@ -5,7 +5,7 @@ across devices and the (small) pose vector replicated:
 
 - :func:`gauss_newton_cg` -- GN with a preconditioned-CG inner solve.  Each
   device computes its factor block's contribution to the gradient and to
-  Hessian-vector products; ``psum`` over ICI reduces them.  Handles arbitrary
+  Hessian-vector products; ``psum`` reduces them.  Handles arbitrary
   loop-closure topology.
 - :func:`schur_block_solve` -- direct block elimination for one GN step:
   interior poses of each contiguous keyframe block are eliminated locally
@@ -18,7 +18,7 @@ Pose vectors are tiny (3-4 floats/keyframe; the trailing axis selects the
 planar (x, y, yaw) or z-aware (x, y, z, yaw) parameterization, see
 ``posegraph.py``) next to the radar data, so replicating x and reducing
 factor contributions is the bandwidth-optimal layout: per GN iteration
-each device moves O(N) floats over ICI.  Every solver here is generic
+each device moves O(N) floats between devices.  Every solver here is generic
 over the pose dimension.
 """
 

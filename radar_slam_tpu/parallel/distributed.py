@@ -1,15 +1,14 @@
 """Multi-host initialization helpers.
 
-Single-process usage needs nothing from this module.  On a real multi-host
-TPU slice, call :func:`initialize` once per process before any jax call;
-mesh axes then span all hosts' devices and the SPMD code in ``parallel/``
-(frame-parallel pipeline, factor-sharded GN, Schur step, sequence-sharded
-batches) runs unchanged -- collectives ride ICI within a slice and DCN
-across slices, scheduled by XLA.
+Single-process usage needs nothing from this module: one process drives
+all the GPUs of its host.  Across hosts, call :func:`initialize` once per
+process before any jax call; mesh axes then span all hosts' devices and the
+SPMD code in ``parallel/`` (frame-parallel pipeline, factor-sharded GN,
+Schur step, sequence-sharded batches) runs unchanged, with collectives
+scheduled by XLA (NCCL on GPUs).
 
-This environment has one chip and no multi-host hardware; the code paths
-are exercised on the virtual CPU mesh (tests/) and via
-``__graft_entry__.dryrun_multichip``.
+The multi-process paths are exercised on the virtual CPU mesh (tests/) and
+via ``__graft_entry__.dryrun_multichip``.
 """
 
 from __future__ import annotations
@@ -23,9 +22,9 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> dict:
     """Initialize jax.distributed from args or standard env vars.
 
-    Recognized env vars (the usual TPU pod / GKE set): JAX_COORDINATOR_ADDRESS
-    (or COORDINATOR_ADDRESS), JAX_NUM_PROCESSES, JAX_PROCESS_ID.  On Cloud
-    TPU VMs all three may be omitted (auto-detected by jax).
+    Recognized env vars: JAX_COORDINATOR_ADDRESS (or COORDINATOR_ADDRESS),
+    JAX_NUM_PROCESSES, JAX_PROCESS_ID.  Without a cluster manager that
+    jax detects, pass all three (the coordinator as ``host:port``).
 
     Returns a dict describing the resulting topology."""
     import jax

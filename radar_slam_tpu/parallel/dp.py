@@ -16,7 +16,7 @@ both distributable:
   to the next device, so every frame can associate against its predecessor;
 - the planar pose is a distributed prefix sum: local cumulative yaw /
   displacement + ``all_gather`` of per-block totals -> exclusive prefix
-  offsets (the standard scan decomposition over ICI).
+  offsets (the standard scan decomposition).
 
 Semantics match ``pipeline.frame.process_sequence_batched`` exactly
 (hard-asserted at atol 1e-5 for every frame in ``tests/test_parallel.py``);
@@ -88,41 +88,20 @@ def _block_targets(signals_block: jax.Array, cfg: PipelineConfig,
     return _targets_from_features(features, cfg, axis_name)
 
 
-def _block_targets_scatterers(sc_block, seeds_block: jax.Array,
-                              keydata_block: jax.Array, cfg: PipelineConfig,
-                              axis_name: str) -> Targets:
-    """Per-block heavy stages from point-cloud scatterers -- the FLAGSHIP
-    front end (VERDICT r04 item 2: through r04 the SPMD driver only ran the
-    materialized-cube path, so multi-chip scaling would have measured the
-    slow path).  On TPU backends each device runs the one-pass Pallas
-    front end (``ops/frontend_pallas.py``) over its frame block; elsewhere
-    the materialized synthesize+``frame_features`` branch runs -- the same
-    backend dispatch contract as ``pipeline.frame.process_sequence_batched``,
-    whose phase A this mirrors per block.
+def _block_targets_scatterers(sc_block, keydata_block: jax.Array,
+                              cfg: PipelineConfig, axis_name: str) -> Targets:
+    """Per-block heavy stages from point-cloud scatterers: the phase A of
+    ``pipeline.frame.process_sequence_batched``
+    (``frame.scatterer_features``) over this device's frame block.
 
-    ``seeds_block`` [B] feeds the in-kernel Mosaic PRNG (one-pass path);
     ``keydata_block`` [B, ...] is ``jax.random.key_data`` of the per-frame
-    keys (fallback path; raw uint32 because typed key arrays don't cross
-    shard_map in_specs)."""
-    from radar_slam_tpu.pipeline import frame as frame_mod
-    from radar_slam_tpu.signal.synth import synthesize_frame
+    keys (raw uint32 because typed key arrays don't cross shard_map
+    in_specs)."""
+    from radar_slam_tpu.pipeline.frame import scatterer_features
 
-    if (cfg.fft_mode == "fused" and cfg.synth_in_kernel
-            and cfg.chirp_subset is None
-            and frame_mod._one_pass_active(cfg)):
-        _, det, sigs = frame_mod._onepass_frontend(sc_block, seeds_block,
-                                                   cfg)
-        features = jax.vmap(
-            lambda d, s: frame_mod._aoa_features(d, s, cfg))(det, sigs)
-    else:
-        keys_block = jax.random.wrap_key_data(keydata_block)
-
-        def heavy(sc, k):
-            sig = synthesize_frame(sc, cfg.radar, k,
-                                   fidelity=cfg.synth_fidelity)
-            return frame_mod.frame_features(sig, cfg)
-
-        features = jax.vmap(heavy)(sc_block, keys_block)
+    keys_block = jax.random.wrap_key_data(keydata_block)
+    features = jax.vmap(lambda sc, k: scatterer_features(sc, k, cfg))(
+        sc_block, keys_block)
     return _targets_from_features(features, cfg, axis_name)
 
 
@@ -191,43 +170,41 @@ def _block_body(signals_block: jax.Array, cfg: PipelineConfig,
                        cfg, axis_name)
 
 
-def _block_body_scatterers(sc_block, seeds_block, keydata_block,
-                           cfg: PipelineConfig, axis_name: str) -> dict:
+def _block_body_scatterers(sc_block, keydata_block, cfg: PipelineConfig,
+                           axis_name: str) -> dict:
     """shard_map body: one contiguous frame block of scatterer batches per
-    device, through the flagship (cube-free one-pass) front end."""
+    device."""
     return _block_tail(
-        _block_targets_scatterers(sc_block, seeds_block, keydata_block,
-                                  cfg, axis_name), cfg, axis_name)
+        _block_targets_scatterers(sc_block, keydata_block, cfg, axis_name),
+        cfg, axis_name)
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "mesh", "axis_name"))
 def process_frames_dp_scatterers(scatterers, key: jax.Array,
                                  cfg: PipelineConfig, mesh: Mesh,
                                  axis_name: str = "f") -> dict:
-    """Frame-parallel SPMD pipeline from point-cloud scatterers -- the
-    production (cube-free) front end sharded over the mesh.
+    """Frame-parallel SPMD pipeline from point-cloud scatterers: the
+    production front end sharded over the mesh.
 
-    Per-frame seeds/keys are derived exactly as in
-    ``pipeline.frame.process_sequence_batched``'s phase A (in-kernel seeds
-    = ``random.bits(key, (F,))``; fallback keys = ``random.split(key, F)``),
-    so the F-frame outputs equal the single-device batched driver's on
-    either backend (asserted in ``tests/test_parallel.py``).  The fallback
-    path requires ``key`` to use the ambient default PRNG impl (key data is
-    re-wrapped inside shard_map, where typed key arrays cannot cross).
+    Per-frame keys are derived exactly as in
+    ``pipeline.frame.process_sequence_batched``'s phase A
+    (``random.split(key, F)``), so the F-frame outputs equal the
+    single-device batched driver's (asserted in ``tests/test_parallel.py``).
+    ``key`` must use the ambient default PRNG impl (key data is re-wrapped
+    inside shard_map, where typed key arrays cannot cross).
 
     Args:
         scatterers: ScattererBatch with frame axis [F, S]; F must divide
             evenly by the mesh size (pad upstream).
     """
     F = scatterers.range_m.shape[0]
-    seeds = jax.random.bits(key, (F,), jnp.uint32).astype(jnp.int32)
     keydata = jax.random.key_data(jax.random.split(key, F))
     body = functools.partial(_block_body_scatterers, cfg=cfg,
                              axis_name=axis_name)
     fn = jax.shard_map(body, mesh=mesh,
-                       in_specs=(P(axis_name), P(axis_name), P(axis_name)),
+                       in_specs=(P(axis_name), P(axis_name)),
                        out_specs=P(axis_name), check_vma=False)
-    return fn(scatterers, seeds, keydata)
+    return fn(scatterers, keydata)
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "mesh", "axis_name"))

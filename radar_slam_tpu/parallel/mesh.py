@@ -2,8 +2,10 @@
 
 The reference has zero distributed computing (SURVEY.md section 2 row 17 --
 its only parallelism is intra-process thread pools); this layer is new
-TPU-native design: SPMD over ``jax.sharding.Mesh`` with XLA collectives
-riding ICI.
+design: SPMD over ``jax.sharding.Mesh`` with XLA collectives.  On a host
+whose cards are joined all to all (NVLink), a 1-D mesh over the frame or
+factor axis is the natural shape: every device reaches every other at the
+same rate.
 """
 
 from __future__ import annotations

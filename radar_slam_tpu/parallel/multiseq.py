@@ -201,7 +201,6 @@ def refine_sequences_mesh(scatterers: ScattererBatch, keys: jax.Array,
 
     from radar_slam_tpu.parallel import slam
     from radar_slam_tpu.parallel.loopclosure import LoopClosureConfig
-    from radar_slam_tpu.utils.host import device_get
 
     if lc_cfg is None:
         lc_cfg = LoopClosureConfig()
@@ -226,13 +225,13 @@ def refine_sequences_mesh(scatterers: ScattererBatch, keys: jax.Array,
         o.motion.success, dt, loop_capacity=max(loop_capacity, 1)))(out)
 
     # -- host-side retrieval + slot fill (numpy on the tiny graph arrays) --
-    txy, tva = device_get((out.target_xy, out.target_valid))
-    open_poses = np.asarray(device_get(graphs.poses))         # [M, F+1, 3]
-    fi = np.asarray(device_get(graphs.fi)).copy()
-    fj = np.asarray(device_get(graphs.fj)).copy()
-    delta = np.asarray(device_get(graphs.delta)).copy()
-    info = np.asarray(device_get(graphs.info)).copy()
-    valid = np.asarray(device_get(graphs.factor_valid)).copy()
+    txy, tva = jax.device_get((out.target_xy, out.target_valid))
+    open_poses = np.asarray(jax.device_get(graphs.poses))         # [M, F+1, 3]
+    fi = np.asarray(jax.device_get(graphs.fi)).copy()
+    fj = np.asarray(jax.device_get(graphs.fj)).copy()
+    delta = np.asarray(jax.device_get(graphs.delta)).copy()
+    info = np.asarray(jax.device_get(graphs.info)).copy()
+    valid = np.asarray(jax.device_get(graphs.factor_valid)).copy()
     all_loops = []
     for m in range(M):
         loops, weighted = slam.propose_weighted_loops(

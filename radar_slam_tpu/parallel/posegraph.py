@@ -1,6 +1,6 @@
 """Pose-graph construction (keyframes + odometry + loop factors).
 
-New TPU-native design -- the reference integrates velocities open-loop
+New design -- the reference integrates velocities open-loop
 (``pose_integration.py``) and has no pose-graph / bundle-adjustment layer at
 all (SURVEY.md section 5, "long-context" row).  Here a trajectory becomes a
 factor graph over keyframe poses, in either of two parameterizations

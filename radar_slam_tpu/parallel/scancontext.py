@@ -9,7 +9,7 @@ independent of odometric drift.  The reference has no counterpart (it has
 no loop closure at all: ``/root/reference/src/pose_integration/
 pose_integration.py`` integrates open-loop).
 
-TPU-first design — every stage is a fixed-shape batched device program:
+Design — every stage is a fixed-shape batched device program:
 
 - **Descriptor** ``[R, S]`` (rings x sectors): log-occupancy of detections
   on a polar grid, built with one ``segment_sum`` per frame and vmapped
@@ -38,7 +38,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from radar_slam_tpu.parallel.loopclosure import LoopClosureConfig, icp_se2
-from radar_slam_tpu.utils.host import device_get
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,8 +185,8 @@ def _stage1_candidates_tiled(keys: jax.Array, top_m: int,
     """City-scale stage 1: EXACT top-M retrieval in O(F * tile) memory.
 
     The dense path materializes the [F, F] similarity matrix — 40 GB of
-    HBM at 10^5 keyframes — while its FLOPs (2 F^2 R) are trivial on the
-    MXU (~3 ms at that scale).  So the scalable form is not approximate
+    device memory at 10^5 keyframes — while its FLOPs (2 F^2 R) are
+    trivial for a matrix unit.  So the scalable form is not approximate
     NN: it streams candidate TILES through a running top-M merge
     (``lax.scan`` over [F, tile] similarity blocks, concatenate + top_k),
     selecting the same candidates as :func:`_stage1_candidates` (values
@@ -261,7 +260,7 @@ def propose_candidates(desc: jax.Array, cfg: ScanContextConfig
     # requires k <= F, and a config with min_separation < top_m would
     # otherwise crash on short sequences.
     top_m = min(cfg.top_m, F)
-    ok, ii, sim, shift = device_get(_stage2_scores(
+    ok, ii, sim, shift = jax.device_get(_stage2_scores(
         desc, top_m, cfg.min_separation, cfg.min_overlap,
         dense_limit=cfg.stage1_dense_limit, tile=cfg.stage1_tile))
     jj = np.repeat(np.arange(F), top_m)
@@ -334,7 +333,7 @@ def find_loop_closures_sc(points: jax.Array, valid: jax.Array,
             s, sv, d, dv, x0, iters=cfg.icp_iters, gate=cfg.match_gate),
         in_axes=(None, None, None, None, 0)),
         in_axes=(0, 0, 0, 0, 0)))
-    deltas, rmses, inliers = device_get(run(
+    deltas, rmses, inliers = jax.device_get(run(
         points[jj], valid[jj], points[ii], valid[ii], jnp.asarray(inits)))
 
     # Pick the better init per pair: most inliers, then lowest RMSE.

@@ -38,11 +38,10 @@ def refine_sequence_output(out, dt: float,
     """Refine a pipeline :class:`~radar_slam_tpu.pipeline.frame.FrameOutput`
     sequence (scan or batched driver) with loop-closure pose-graph GN;
     ``use_z`` feeds the solver's vertical rate into the z-aware graph."""
-    from radar_slam_tpu.utils.host import device_get
 
-    vel = device_get(out.motion.velocity)
-    wz = device_get(out.motion.angular_velocity)[:, 2]
-    ok = device_get(out.motion.success)
+    vel = jax.device_get(out.motion.velocity)
+    wz = jax.device_get(out.motion.angular_velocity)[:, 2]
+    ok = jax.device_get(out.motion.success)
     return refine_trajectory(
         vel, wz, ok, dt,
         frame_points=out.target_xy, frame_valid=out.target_valid,

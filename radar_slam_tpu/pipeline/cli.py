@@ -149,7 +149,6 @@ def cmd_analyze(args) -> int:
     """Streaming analysis with GT comparison
     (radarscenes_complete_analysis.py parity)."""
     from radar_slam_tpu.pipeline.streaming import StreamingAnalyzer
-    from radar_slam_tpu.viz.plots import comprehensive_overview
 
     cfg = _cfg_from_args(args)
     if getattr(args, "rig", False):
@@ -212,6 +211,7 @@ def cmd_analyze(args) -> int:
             metrics["slam_yaw_rmse"] = m2["yaw_rmse"]
     print(json.dumps(metrics, indent=2, default=float))
     if args.out:
+        from radar_slam_tpu.viz.plots import comprehensive_overview
         Path(args.out).mkdir(parents=True, exist_ok=True)
         comprehensive_overview(an.results,
                                Path(args.out) / "complete_analysis.png")
@@ -649,7 +649,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from radar_slam_tpu.utils.compile_cache import enable_compile_cache
+
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -39,11 +39,8 @@ from radar_slam_tpu.motion.associate import associate_targets
 from radar_slam_tpu.motion.pose import planar_pose_step
 from radar_slam_tpu.motion.velocity import solve_velocity
 from radar_slam_tpu.pipeline import frame as frame_mod
-from radar_slam_tpu.pipeline.frame import FrameOutput, FrameState
-from radar_slam_tpu.signal import detect as detect_mod
-from radar_slam_tpu.signal.detect import detect_peaks, detect_peaks_from_power
-from radar_slam_tpu.signal.rds import (detection_signatures,
-                                       range_doppler_spectrum, rds_power)
+from radar_slam_tpu.pipeline.frame import (FrameOutput, FrameState,
+                                           detect_frame)
 from radar_slam_tpu.signal.synth import synthesize_frame
 
 Rig = Tuple[Tuple[float, float, float], ...]  # ((x, y, yaw) per sensor)
@@ -126,67 +123,12 @@ def process_scatterers_rig(state: FrameState, scatterers: ScattererBatch,
     mount_xy, mount_yaw = rig_arrays(rig)
     keys = jax.random.split(key, B)
 
-    if (cfg.fft_mode == "fused" and cfg.synth_in_kernel
-            and cfg.chirp_subset is None and frame_mod._one_pass_active(cfg)):
-        # One-pass kernel front end over the SENSOR axis (the first
-        # kernel-accelerated rig path; through r03 the rig always
-        # materialized per-sensor ADC cubes).  Per-sensor noise seeds come
-        # from the same per-sensor key split as the materialized path.
-        seeds = jax.vmap(lambda k: jax.random.bits(k, (), jnp.uint32)
-                         .astype(jnp.int32))(keys)
-        p_b, det_b, sigs_b = frame_mod._onepass_frontend(
-            scatterers, seeds, cfg, clutter=state.clutter)
-
-        def aoa_tail(det, sigs, sm, cl, p):
-            cl = (detect_mod.clutter_map_update_from_power(
-                cl, p, cfg.detection.clutter_map_alpha)
-                if cl is not None else None)
-            targets, sm = aoa_robust.process_targets_robust(
-                None, det, sm, cfg.radar, cfg.aoa, method=cfg.aoa.method,
-                signatures=sigs, doppler_bins=p.shape[-1])
-            return targets, sm, cl
-
-        targets_b, smoother, clutter = jax.vmap(aoa_tail)(
-            det_b, sigs_b, state.smoother, state.clutter, p_b)
-        return _rig_tail(state, targets_b, smoother, clutter, cfg, rig,
-                         mount_xy, mount_yaw, rotate_pose)
-
     def per_sensor(sc, k, sm, cl):
         sig = synthesize_frame(sc, cfg.radar, k, fidelity=cfg.synth_fidelity)
-        if cfg.fft_mode == "fused":
-            # Fused detection path (see pipeline/frame.py:process_signals):
-            # power map straight from the ADC cube, signatures recomputed
-            # at f32 for only the detected cells.
-            p_lin = rds_power(sig, cfg.radar, window=cfg.window,
-                              chirp_subset=cfg.chirp_subset,
-                              doppler_window=cfg.doppler_window,
-                              dft_precision=cfg.power_precision)
-            det = detect_peaks_from_power(p_lin, cfg.radar, cfg.detection,
-                                          clutter_lin=cl)
-            sigs = detection_signatures(sig, det.range_bin, det.doppler_bin,
-                                        cfg.radar, window=cfg.window,
-                                        chirp_subset=cfg.chirp_subset,
-                                        doppler_window=cfg.doppler_window)
-            cl = (detect_mod.clutter_map_update_from_power(
-                cl, p_lin, cfg.detection.clutter_map_alpha)
-                if cl is not None else None)
-            targets, sm = aoa_robust.process_targets_robust(
-                None, det, sm, cfg.radar, cfg.aoa, method=cfg.aoa.method,
-                signatures=sigs, doppler_bins=p_lin.shape[-1])
-            return targets, sm, cl
-        rds = range_doppler_spectrum(sig, cfg.radar, window=cfg.window,
-                                     chirp_subset=cfg.chirp_subset,
-                                     doppler_window=cfg.doppler_window,
-                                     use_pallas=cfg.use_pallas,
-                                     fft_mode=cfg.fft_mode,
-                                     dft_precision=cfg.dft_precision)
-        det = detect_peaks(rds, cfg.radar, cfg.detection,
-                           use_pallas=cfg.use_pallas, clutter_lin=cl)
-        cl = (detect_mod.clutter_map_update(
-            cl, rds, cfg.detection.clutter_map_alpha)
-            if cl is not None else None)
+        det, sigs, cl, doppler_bins = detect_frame(sig, cfg, cl)
         targets, sm = aoa_robust.process_targets_robust(
-            rds, det, sm, cfg.radar, cfg.aoa, method=cfg.aoa.method)
+            None, det, sm, cfg.radar, cfg.aoa, method=cfg.aoa.method,
+            signatures=sigs, doppler_bins=doppler_bins)
         return targets, sm, cl
 
     targets_b, smoother, clutter = jax.vmap(per_sensor)(
@@ -197,8 +139,8 @@ def process_scatterers_rig(state: FrameState, scatterers: ScattererBatch,
 
 def _rig_tail(state, targets_b, smoother, clutter, cfg, rig, mount_xy,
               mount_yaw, rotate_pose):
-    """Stateful tail shared by the one-pass and materialized rig steps:
-    vehicle-frame merge, association, 6-DoF solve, pose, state update."""
+    """Stateful tail of the rig step: vehicle-frame merge, association,
+    6-DoF solve, pose, state update."""
     B = len(rig)
     K = cfg.detection.max_detections
     targets_b = jax.vmap(_to_vehicle_frame)(targets_b, mount_xy, mount_yaw)
@@ -254,10 +196,9 @@ def _rig_tail(state, targets_b, smoother, clutter, cfg, rig, mount_xy,
 def sequence_features_rig(scatterers: ScattererBatch, key: jax.Array,
                           cfg: PipelineConfig, rig: Rig):
     """Phase A of the batched rig driver: per-(frame, sensor) heavy stages
-    over the FLATTENED [F*B] frame axis -- on TPU backends the one-pass
-    front end runs with (frame x sensor) as its kernel grid
-    (``ops/frontend_pallas.py``), exactly the sequential rig's kernel but
-    amortizing every dispatch over the whole sequence.
+    over the FLATTENED [F*B] frame axis (``frame.scatterer_features``, the
+    phase A of every scatterer driver), amortizing every dispatch over the
+    whole sequence.
 
     Noise realizations match :func:`process_sequence_rig` bit-for-bit: the
     per-(f, b) key is split(split(key, F)[f], B)[b], the same derivation
@@ -282,20 +223,9 @@ def _features_from_frame_keys(scatterers: ScattererBatch, keys_f: jax.Array,
     flat = jax.tree.map(
         lambda x: x.reshape((F * B,) + x.shape[2:]), scatterers)
 
-    if (cfg.fft_mode == "fused" and cfg.synth_in_kernel
-            and cfg.chirp_subset is None and frame_mod._one_pass_active(cfg)):
-        seeds = jax.vmap(lambda k: jax.random.bits(k, (), jnp.uint32)
-                         .astype(jnp.int32))(keys_fb.reshape(F * B))
-        _, det, sigs = frame_mod._onepass_frontend(flat, seeds, cfg)
-        features = jax.vmap(
-            lambda d, s: frame_mod._aoa_features(d, s, cfg))(det, sigs)
-    else:
-        def heavy(sc, k):
-            sig = synthesize_frame(sc, cfg.radar, k,
-                                   fidelity=cfg.synth_fidelity)
-            return frame_mod.frame_features(sig, cfg)
-
-        features = jax.vmap(heavy)(flat, keys_fb.reshape(F * B))
+    features = jax.vmap(
+        lambda sc, k: frame_mod.scatterer_features(sc, k, cfg))(
+            flat, keys_fb.reshape(F * B))
     return jax.tree.map(
         lambda x: x.reshape((F, B) + x.shape[1:]), features)
 

@@ -134,33 +134,21 @@ def clutter_map_update_from_power(clutter_lin: jax.Array, p_lin: jax.Array,
     return (1.0 - alpha) * clutter_lin + alpha * p_lin
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "det", "use_pallas"))
+@functools.partial(jax.jit, static_argnames=("cfg", "det"))
 def detect_peaks(rds: jax.Array, cfg: RadarConfig,
-                 det: DetectionConfig, use_pallas: bool = False,
+                 det: DetectionConfig,
                  clutter_lin: jax.Array | None = None) -> Detections:
     """Extract the top-K range-Doppler peaks from an RDS cube [A, R, D].
 
     Returns a masked static-shape :class:`Detections` (K = det.max_detections),
-    sorted by descending power.  ``use_pallas`` routes the power/local-max/
-    CFAR stage through the fused Pallas kernel (ops/cfar_pallas.py).
-    ``clutter_lin`` is an optional [R, D] background power map (see
-    :func:`clutter_map_update`); cells must additionally exceed it by
+    sorted by descending power.  ``clutter_lin`` is an optional [R, D]
+    background power map (see :func:`clutter_map_update`); cells must additionally exceed it by
     ``det.clutter_offset_db``.
     """
-    if use_pallas and det.cfar_mode != "ca":
-        use_pallas = False  # the fused Pallas kernel implements CA only
-    if use_pallas:
-        from radar_slam_tpu.ops.cfar_pallas import cfar_mask
-        power_db, pm = cfar_mask(
-            rds, threshold_db=det.threshold_db,
-            neighborhood=det.neighborhood, train=det.cfar_train_cells,
-            guard=det.guard_cells, offset_db=det.cfar_offset_db)
-        is_peak_above = pm
-    else:
-        # Linear power once; dB derived from it (round 1 recomputed
-        # p_lin = 10^(dB/10), an 800k-cell transcendental round trip).
-        p_lin = jnp.mean(jnp.abs(rds) ** 2, axis=0) + 1e-12  # [R, D]
-        power_db, is_peak_above = _threshold_power(p_lin, det)
+    # Linear power once; dB derived from it (round 1 recomputed
+    # p_lin = 10^(dB/10), an 800k-cell transcendental round trip).
+    p_lin = jnp.mean(jnp.abs(rds) ** 2, axis=0) + 1e-12      # [R, D]
+    power_db, is_peak_above = _threshold_power(p_lin, det)
     return _finalize_detections(power_db, is_peak_above, cfg, det,
                                 clutter_lin)
 
@@ -235,39 +223,6 @@ def _finalize_detections(power_db: jax.Array, is_peak_above: jax.Array,
     return _detections_from_bins(power_db, r_bin, d_bin, top_vals, cfg, det)
 
 
-def range_gate_bin_interval(cfg: RadarConfig, R: int,
-                            det: DetectionConfig) -> tuple[int, int]:
-    """Static inclusive bin interval [lo, hi] of the range gate -- the
-    bins where ``(range_axis_m(cfg, R) >= det.min_range) &
-    (<= det.max_range)`` holds (host-side numpy replica of the f32 axis,
-    so the one-pass kernel's iota gate matches the XLA mask)."""
-    import numpy as np
-    bin_hz = cfg.sampling_rate / R
-    metres_per_hz = cfg.c / (2.0 * cfg.chirp_rate)
-    ranges = (np.arange(R, dtype=np.float32)
-              * np.float32(bin_hz * metres_per_hz))
-    ok = np.nonzero((ranges >= det.min_range)
-                    & (ranges <= det.max_range))[0]
-    if ok.size == 0:
-        return (1, 0)      # empty gate: lo > hi masks every bin
-    return (int(ok[0]), int(ok[-1]))
-
-
-def detections_from_topk(p_lin: jax.Array, r_bin: jax.Array,
-                         d_bin: jax.Array, top_vals: jax.Array,
-                         cfg: RadarConfig, det: DetectionConfig
-                         ) -> Detections:
-    """Build :class:`Detections` from raw top-K picks.
-
-    The one-pass front-end kernel (``ops/frontend_pallas.py``) runs
-    CFAR + local-max + gates + top-K in VMEM and emits raw (pre-NMS)
-    bins with -inf ``top_vals`` for exhausted slots; this is the
-    remaining [K]-shaped tail (NMS, zeroing, sub-bin interpolation,
-    bin->metric conversion), identical to :func:`detect_peaks`'s."""
-    power_db = 10.0 * jnp.log10(p_lin + 1e-12)
-    return _detections_from_bins(power_db, r_bin, d_bin, top_vals, cfg, det)
-
-
 def _detections_from_bins(power_db: jax.Array, r_bin: jax.Array,
                           d_bin: jax.Array, top_vals: jax.Array,
                           cfg: RadarConfig, det: DetectionConfig
@@ -295,10 +250,10 @@ def _detections_from_bins(power_db: jax.Array, r_bin: jax.Array,
     # lambda/(4 dt) ~ 2 cm/s; sub-bin interpolation bridges that gap.  The
     # reference reports integer bins only (dechirp.py:258-271).
     # One contiguous ROW gather + one-hot masked reductions: rows r-1..r+1
-    # are contiguous in the minor axis, so gathering whole [D]-rows
-    # vectorizes where the 5-scattered-element version still traced at
-    # ~200 us/64-frame batch; the within-row taps are bit-exact one-hot
-    # sums (single nonzero) that fuse with the surrounding arithmetic.
+    # are contiguous in the minor axis, so whole [D]-rows are gathered
+    # instead of 5 scattered elements; the within-row taps are bit-exact
+    # one-hot sums (single nonzero) that fuse with the surrounding
+    # arithmetic.
     rows3 = jnp.take(power_db,
                      jnp.clip(jnp.stack([r_bin - 1, r_bin, r_bin + 1],
                                         axis=-1), 0, R - 1).reshape(-1),

@@ -1,9 +1,9 @@
 """Vectorized FMCW raw-signal synthesis from point-cloud scatterers.
 
-TPU-first re-design of the reference simulator
+Re-design of the reference simulator
 (``scripts/simulate_raw.py:27-221``), whose hot triple Python loop
-(scatterer x chirp x antenna, ``:171-209``) becomes one complex matmul that
-maps onto the MXU: the per-scatterer fast-time, slow-time and antenna phase
+(scatterer x chirp x antenna, ``:171-209``) becomes one complex matmul: the
+per-scatterer fast-time, slow-time and antenna phase
 factors are rank-1 separable, so
 
     signals[a, c, s] = sum_sc amp_sc * E_ant[sc, a] * E_dopp[sc, c] * E_fast[sc, s]
@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import functools
 import math
-import typing
 
 import jax
 import jax.numpy as jnp
@@ -46,9 +45,10 @@ from radar_slam_tpu.core.types import ScattererBatch
 def expj_cycles(cycles: jax.Array) -> jax.Array:
     """exp(j 2 pi x) with range reduction to |phase| <= pi.
 
-    TPU float32 sin/cos lose all accuracy for arguments beyond ~1e4 rad (the
-    carrier term -4 pi R / lambda alone reaches ~1.6e5 rad); reducing the
-    *cycle count* mod 1 before the transcendental keeps the argument tiny.
+    float32 sin/cos lose accuracy for large arguments (the carrier term
+    -4 pi R / lambda alone reaches ~1.6e5 rad, where one f32 ulp is ~0.016
+    rad); reducing the *cycle count* mod 1 before the transcendental keeps
+    the argument tiny.
     """
     x = cycles - jnp.round(cycles)
     return jnp.exp(1j * (2.0 * jnp.pi) * x.astype(jnp.float32))
@@ -116,7 +116,7 @@ def synthesize_frame(scatterers: ScattererBatch,
     A, C, S = cfg.total_antennas, cfg.num_chirps, cfg.samples_per_chirp
     e_ac, e_fast = synthesis_factors(scatterers, cfg, fidelity)
 
-    # Contract scatterers on the MXU: [Sc, A*C]^T @ [Sc, S] -> [A*C, S].
+    # Contract scatterers: [Sc, A*C]^T @ [Sc, S] -> [A*C, S].
     signals = jnp.einsum("xp,xs->ps", e_ac, e_fast,
                          precision=jax.lax.Precision.HIGHEST).reshape(A, C, S)
 
@@ -155,10 +155,7 @@ def synthesis_factors(scatterers: ScattererBatch, cfg: RadarConfig,
         signals[a*C + c, s] = (e_ac^T @ e_fast)[a*C + c, s]
 
     Returns (e_ac [Sc, A*C], e_fast [Sc, S]) complex64 -- amplitude x
-    antenna x Doppler factors and echo-gated fast-time beat factors.  The
-    cube-free front end (``ops/synthpower_pallas.py``) consumes these
-    directly so the ADC cube is synthesized inside the kernel and never
-    written to HBM."""
+    antenna x Doppler factors and echo-gated fast-time beat factors."""
     A, C, S = cfg.total_antennas, cfg.num_chirps, cfg.samples_per_chirp
     lam = cfg.lambda_c
     k_rate = cfg.chirp_rate
@@ -182,7 +179,7 @@ def synthesis_factors(scatterers: ScattererBatch, cfg: RadarConfig,
     tau = 2.0 * r_safe / cfg.c                             # [Sc]
 
     # All phases are accumulated in CYCLES and reduced mod 1 before exp
-    # (see expj_cycles): TPU float32 trig is inaccurate for large arguments.
+    # (see expj_cycles): float32 trig is inaccurate for large arguments.
     # Fast-time factor: cycles = -fc tau + 0.5 k tau^2 - k tau t, with
     # samples before the echo arrival (t < tau) zeroed (simulate_raw.py:197).
     t = fast_time_base(cfg, fidelity)                                   # [S]
@@ -229,98 +226,6 @@ def synthesis_factors(scatterers: ScattererBatch, cfg: RadarConfig,
 
     e_ac = (e_ant[:, :, None] * e_dopp[:, None, :]).reshape(-1, A * C)
     return e_ac.astype(jnp.complex64), e_fast.astype(jnp.complex64)
-
-
-class SplitFactors(typing.NamedTuple):
-    """Factorized synthesis factors (``synthesis_factors_split``).
-
-    The dense factors are outer products of per-axis phase tables, so
-    materializing them in XLA and shipping [Sc, A*C] + [Sc, S] complex
-    planes to the front-end kernel wastes both transcendentals (the
-    per-sample exp) and HBM bandwidth (~8x more input bytes than the
-    tables below).  The one-pass kernel recomposes them in VMEM:
-
-        e_ac[sc, a*C + c]   = ant[sc, a] * dopp[sc, c]
-        e_fast[sc, q*B + j] = coarse[sc, q] * fine[sc, j]
-                              * [t_{qB+j} >= tau_sc]  (echo gate)
-
-    the fast-time split being exact because the beat phase is linear in
-    the sample index (cycles = const - beat * t_s, synthesis_factors).
-    """
-    ant: jax.Array       # [Sc, A] complex64, amplitude folded (0 invalid)
-    dopp: jax.Array      # [Sc, C] complex64 slow-time factor
-    coarse: jax.Array    # [Sc, Q] complex64, Q = ceil(S / B); const folded
-    fine: jax.Array      # [Sc, B] complex64
-    tau: jax.Array       # [Sc] f32 round-trip delay (echo-gate threshold)
-
-
-def synthesis_factors_split(scatterers: ScattererBatch, cfg: RadarConfig,
-                            fidelity: str = "tpu",
-                            block: int = 128) -> SplitFactors:
-    """``synthesis_factors`` in factorized form (see ``SplitFactors``).
-
-    Identical math; the only deviations are f32 rounding (the composed
-    phase splits cycle counts as ``const - beat*(t[qB] + t[j])`` versus
-    the dense ``const - beat*t[qB+j]``, a ~1 ulp argument difference) and
-    unit-modulus products replacing single exps (~1e-7 per element).
-    Transcendental count drops from Sc*(S + A + C) to
-    Sc*(S/B + B + A + C) (~5.5x at the production operating point).
-    """
-    A, C, S = cfg.total_antennas, cfg.num_chirps, cfg.samples_per_chirp
-    lam = cfg.lambda_c
-    k_rate = cfg.chirp_rate
-
-    r = scatterers.range_m.astype(jnp.float32)
-    az = scatterers.azimuth_rad.astype(jnp.float32)
-    rcs = scatterers.rcs_db.astype(jnp.float32)
-    vr = scatterers.vr.astype(jnp.float32)
-    el = (scatterers.elevation_rad.astype(jnp.float32)
-          if scatterers.elevation_rad is not None else jnp.zeros_like(az))
-
-    ok = (scatterers.valid
-          & (r > 0.0)
-          & jnp.isfinite(r) & jnp.isfinite(az)
-          & jnp.isfinite(rcs) & jnp.isfinite(vr))
-    r_safe = jnp.where(ok, r, 1.0)
-    amp = jnp.sqrt(10.0 ** (rcs / 10.0)) / (4.0 * jnp.pi * r_safe ** 2)
-    amp = jnp.where(ok, amp, 0.0)
-    tau = 2.0 * r_safe / cfg.c
-
-    t = fast_time_base(cfg, fidelity)                                   # [S]
-    carrier_cycles = 2.0 * r_safe / lam
-    const_cycles = -(carrier_cycles - jnp.round(carrier_cycles)) \
-        + 0.5 * k_rate * tau * tau
-    beat = k_rate * tau                                                 # [Sc]
-    # t[qB + j] == t[qB] + t[j] exactly in reals for both time bases
-    # (both are s * dt); coarse gets the constant term, fine the remainder.
-    coarse = expj_cycles(const_cycles[:, None]
-                         - beat[:, None] * t[::block][None, :])
-    fine = expj_cycles(-beat[:, None] * t[:block][None, :])
-
-    c_idx = jnp.arange(C, dtype=jnp.float32)
-    if fidelity == "reference":
-        cycles_dopp = jnp.broadcast_to((2.0 * vr / lam)[:, None],
-                                       vr.shape + (C,))
-    else:
-        cycles_dopp = (-2.0 / lam) * vr[:, None] * (c_idx[None, :] * cfg.pri)
-    e_dopp = expj_cycles(cycles_dopp)
-
-    u_y = jnp.cos(el) * jnp.sin(az)
-    u_z = jnp.sin(el)
-    pos_az = jnp.arange(cfg.num_antennas, dtype=jnp.float32) * cfg.spacing
-    pos_el = (jnp.arange(cfg.num_antennas_el, dtype=jnp.float32)
-              * cfg.spacing_el)
-    cycles_ant = (1.0 / lam) * (
-        u_y[:, None, None] * pos_az[None, None, :]
-        + u_z[:, None, None] * pos_el[None, :, None])
-    cycles_ant = cycles_ant.reshape(-1, A)
-    e_ant = expj_cycles(cycles_ant) * amp[:, None]
-
-    return SplitFactors(e_ant.astype(jnp.complex64),
-                        e_dopp.astype(jnp.complex64),
-                        coarse.astype(jnp.complex64),
-                        fine.astype(jnp.complex64),
-                        tau.astype(jnp.float32))
 
 
 def synthesize_frames_batch(scatterers: ScattererBatch, cfg: RadarConfig,

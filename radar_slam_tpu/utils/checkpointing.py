@@ -16,14 +16,13 @@ from typing import Any, Tuple
 import jax
 import numpy as np
 
-from radar_slam_tpu.utils.host import device_get
 
 
 def save_pytree(path: str | Path, tree: Any, step: int = 0) -> Path:
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     leaves, treedef = jax.tree.flatten(tree)
-    arrays = {f"leaf_{i}": device_get(x) for i, x in enumerate(leaves)}
+    arrays = {f"leaf_{i}": jax.device_get(x) for i, x in enumerate(leaves)}
     np.savez(path.with_suffix(".npz"), **arrays)
     meta = {"step": step, "num_leaves": len(leaves),
             "treedef": str(treedef)}

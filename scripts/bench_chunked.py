@@ -44,6 +44,9 @@ def main():
     ap.add_argument("--scan", action="store_true")
     args = ap.parse_args()
 
+    from radar_slam_tpu.utils.device import require_gpu
+    require_gpu()
+
     cfg = dataclasses.replace(complete_analysis_config(), max_scatterers=128)
     f1, f2 = args.frames
 

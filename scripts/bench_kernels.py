@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Per-kernel microbenchmarks with roofline context (BASELINE "kernel
 quality" reporting): 2-D FFT, batched eigh, batched ridge LSQ, beamforming
-matmul, synthesis matmul, Pallas dechirp + CFAR.
+matmul, synthesis matmul.
 
-Each entry reports achieved throughput and the utilization implied by a
-v5e-order peak (197 TFLOP/s bf16 matmul; ~820 GB/s HBM).  Batched small ops
-(eigh on 8x8) are latency/VPU-bound, not MXU-bound -- their "roofline" is
-reported as op rate, not FLOPs.
+Each entry reports achieved throughput and the utilization of the
+published peaks of the device's kind (radar_slam_tpu/utils/device.py:
+PEAKS; an unknown device is an error).  Batched small ops (eigh on 8x8)
+are latency-bound -- their "roofline" is reported as op rate, not FLOPs.
 """
 
 import json
@@ -20,9 +20,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-PEAK_MATMUL_TFLOPS = 197.0   # v5e bf16
-PEAK_HBM_GBS = 820.0
-
 
 def _scalar(out):
     leaf = jax.tree.leaves(out)[0]
@@ -30,15 +27,11 @@ def _scalar(out):
 
 
 def timeit(fn, *args, iters=64):
-    """Device time per kernel call via in-program chaining.
-
-    This backend's timing traps: ``block_until_ready`` resolves before
-    device completion (utilizations exceeded hardware peaks), and each
-    dispatch pays a ~1-2 ms synchronous round trip (sub-ms kernels read as
-    the RTT floor).  So the kernel is iterated ``iters`` times INSIDE one
-    jitted program -- each iteration's input is scaled by a loop-dependent
-    factor so XLA cannot hoist the loop-invariant call -- and the single
-    dispatch+fetch overhead is cancelled by differencing iters vs iters//4.
+    """Device time per kernel call via in-program chaining: the kernel is
+    iterated ``iters`` times INSIDE one jitted program -- each iteration's
+    input is scaled by a loop-dependent factor so XLA cannot hoist the
+    loop-invariant call -- and the single dispatch+fetch overhead is
+    cancelled by differencing iters vs iters//4.
     """
     x0 = args[0]
     rest = args[1:]
@@ -66,6 +59,9 @@ def timeit(fn, *args, iters=64):
 
 
 def main():
+    from radar_slam_tpu.utils.device import peak_rates, require_gpu
+    device = require_gpu()
+    peaks = peak_rates(device["kind"])
     results = []
     key = jax.random.key(0)
 
@@ -89,7 +85,7 @@ def main():
         "kernel": "fft2_range_doppler", "time_us": round(t * 1e6, 1),
         "gflops": round(flops / t / 1e9, 1),
         "hbm_gbs": round(bytes_ / t / 1e9, 1),
-        "hbm_util": round(bytes_ / t / 1e9 / PEAK_HBM_GBS, 3),
+        "hbm_util": round(bytes_ / t / 1e9 / peaks["hbm_gbps"], 3),
     })
 
     # --- batched 8x8 Hermitian eigendecomposition -------------------------
@@ -146,10 +142,10 @@ def main():
     results.append({
         "kernel": "beamforming_spectra", "time_us": round(t * 1e6, 1),
         "tflops": round(flops / t / 1e12, 3),
-        "mxu_util": round(flops / t / 1e12 / PEAK_MATMUL_TFLOPS, 4),
+        "f32_util": round(flops / t / 1e12 / peaks["f32_tflops"], 4),
     })
 
-    # --- synthesis contraction (the per-frame MXU matmul) -----------------
+    # --- synthesis contraction (the per-frame matmul) ----------------------
     @jax.jit
     def make_synth(key):
         a, b = jax.random.split(key)
@@ -166,30 +162,11 @@ def main():
     results.append({
         "kernel": "synthesis_matmul_64frames", "time_us": round(t * 1e6, 1),
         "tflops": round(flops / t / 1e12, 2),
-        "mxu_util_bf16peak": round(flops / t / 1e12 / PEAK_MATMUL_TFLOPS, 3),
+        "f32_util": round(flops / t / 1e12 / peaks["f32_tflops"], 3),
     })
 
-    # --- Pallas kernels ----------------------------------------------------
-    from radar_slam_tpu.ops.cfar_pallas import cfar_mask
-    from radar_slam_tpu.ops.dechirp_pallas import dechirp_window_dc
-
-    @jax.jit
-    def mk_mix(key):
-        a, b = jax.random.split(key)
-        return (jax.random.normal(a, (400,))
-                + 1j * jax.random.normal(b, (400,))).astype(jnp.complex64)
-
-    sig1 = cube[0].transpose(0, 2, 1)      # [8, 64, 400]
-    mix = mk_mix(key)
-    t = timeit(jax.jit(lambda s, m: dechirp_window_dc(s, m, True)), sig1, mix, iters=4096)
-    results.append({"kernel": "pallas_dechirp_fused",
-                    "time_us": round(t * 1e6, 1)})
-    t = timeit(jax.jit(lambda r: cfar_mask(r, -25.0, 3, 8, 2, 12.0)), cube[0], iters=1024)
-    results.append({"kernel": "pallas_cfar_fused",
-                    "time_us": round(t * 1e6, 1)})
-
-    print(json.dumps({"device": str(jax.devices()[0]), "kernels": results},
-                     indent=2))
+    print(json.dumps({"device": device, "peaks": peaks,
+                      "kernels": results}, indent=2))
 
 
 if __name__ == "__main__":

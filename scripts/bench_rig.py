@@ -62,6 +62,9 @@ def main():
                          "prefetch driver (the real-data ingest path)")
     args = ap.parse_args()
 
+    from radar_slam_tpu.utils.device import require_gpu
+    require_gpu()
+
     cfg = dataclasses.replace(complete_analysis_config(), max_scatterers=128)
 
     def scene(n):

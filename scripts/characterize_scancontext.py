@@ -62,12 +62,12 @@ def main():
     args = ap.parse_args()
 
     from radar_slam_tpu.io.synthetic import (augment_clutter_movers,
+                                             circle_scene,
                                              periodic_corridor_scene)
     from radar_slam_tpu.parallel import slam
     from radar_slam_tpu.parallel.loopclosure import LoopClosureConfig
     from radar_slam_tpu.parallel.scancontext import (ScanContextConfig,
                                                      build_descriptors)
-    from tests.test_slam import circle_scene
 
     sc = ScanContextConfig()
     pops = {"true_revisit": [], "true_revisit_clutter": [],

@@ -4,8 +4,8 @@ The virtual 8-device mesh used everywhere else is single-process; this test
 spawns 2 REAL Python processes (2 virtual CPU devices each, 4 global),
 initializes ``parallel.distributed.initialize`` with process_count=2, and
 runs a cross-process psum plus one frame-parallel ``process_frames_dp``
-step -- the multi-host branches nothing in-process can reach.  No TPU
-hardware needed (the standard CPU+gloo fake-multihost recipe).
+step -- the multi-host branches nothing in-process can reach.  No
+accelerator needed (the standard CPU+gloo fake-multihost recipe).
 """
 
 import socket

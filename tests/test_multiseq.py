@@ -147,7 +147,7 @@ def test_refine_sequences_mesh_round_trip(eight_devices):
     error per sequence.
 
     The scenes are the calibrated loop-closure scenario
-    (tests/test_slam.py:circle_scene + odometric bias -- the same drift
+    (io/synthetic.py:circle_scene + odometric bias -- the same drift
     model the scan-context characterization tier pins down); they enter
     through refine_sequences_mesh's ``out=`` injection so the test
     isolates the retrieve -> fill -> mesh-solve composition the r03
@@ -158,8 +158,8 @@ def test_refine_sequences_mesh_round_trip(eight_devices):
     from radar_slam_tpu.core.types import MotionEstimate
     from radar_slam_tpu.parallel import posegraph
     from radar_slam_tpu.parallel.loopclosure import LoopClosureConfig
+    from radar_slam_tpu.io.synthetic import circle_scene
     from radar_slam_tpu.pipeline.frame import FrameOutput
-    from tests.test_slam import circle_scene
 
     M, F = 2, 95                    # F + 1 = 96 poses over the 8-mesh
     v_true, w_true, dt = 6.0, 0.7, CFG.frame_dt

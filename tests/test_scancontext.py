@@ -11,6 +11,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
+from radar_slam_tpu.io.synthetic import circle_scene
 from radar_slam_tpu.parallel import slam
 from radar_slam_tpu.parallel.loopclosure import (LoopClosureConfig,
                                                  find_loop_closures)
@@ -20,7 +21,6 @@ from radar_slam_tpu.parallel.scancontext import (ScanContextConfig,
                                                  propose_candidates,
                                                  ring_keys, sc_correlate,
                                                  shift_to_yaw)
-from tests.test_slam import circle_scene
 
 
 def test_fft_correlation_matches_bruteforce():

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import pytest
 
 from radar_slam_tpu.io.synthetic import (augment_clutter_movers,
+                                         circle_scene,
                                          periodic_corridor_scene)
 from radar_slam_tpu.parallel import scancontext, slam
 from radar_slam_tpu.parallel.loopclosure import LoopClosureConfig
@@ -26,7 +27,6 @@ from radar_slam_tpu.parallel.scancontext import (ScanContextConfig,
                                                  build_descriptors,
                                                  find_loop_closures_sc,
                                                  propose_candidates)
-from tests.test_slam import circle_scene
 
 N_FRAMES = 80
 V, DT = 6.0, 0.1

@@ -5,6 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from radar_slam_tpu.io.synthetic import circle_scene
 from radar_slam_tpu.parallel import slam
 from radar_slam_tpu.parallel.loopclosure import (LoopClosureConfig,
                                                  find_loop_closures, icp_se2)
@@ -12,13 +13,6 @@ from radar_slam_tpu.parallel.loopclosure import (LoopClosureConfig,
 
 def random_cloud(rng, n=40, spread=25.0):
     return rng.uniform(-spread, spread, (n, 2)).astype(np.float32)
-
-
-def to_body(world_pts, pose):
-    c, s = np.cos(pose[2]), np.sin(pose[2])
-    rel = world_pts - pose[:2]
-    return np.stack([c * rel[:, 0] + s * rel[:, 1],
-                     -s * rel[:, 0] + c * rel[:, 1]], axis=-1)
 
 
 def test_icp_recovers_known_transform():
@@ -49,34 +43,6 @@ def test_icp_partial_overlap_and_masks():
                             jnp.zeros(3), iters=8, gate=1.5)
     assert int(n) >= 25                            # inliers found
     np.testing.assert_allclose(np.asarray(pose), 0.0, atol=0.2)
-
-
-def circle_scene(n_frames=90, v=6.0, w=0.7, dt=0.1, n_world=120, seed=2):
-    """Ego drives a full circle; world points along the circle."""
-    rng = np.random.default_rng(seed)
-    poses = []
-    x = np.zeros(2)
-    yaw = 0.0
-    for _ in range(n_frames):
-        poses.append([x[0], x[1], yaw])
-        x = x + dt * np.array([v * np.cos(yaw), v * np.sin(yaw)])
-        yaw += w * dt
-    poses = np.array(poses)
-    radius = v / w
-    center = np.array([0.0, radius])
-    ang = rng.uniform(0, 2 * np.pi, n_world)
-    rad = radius + rng.uniform(-12, 12, n_world)
-    world = center + np.stack([rad * np.sin(ang), -rad * np.cos(ang)], -1)
-
-    pts, msk = [], []
-    for p in poses:
-        body = to_body(world, p)
-        rngs = np.hypot(body[:, 0], body[:, 1])
-        az = np.arctan2(body[:, 1], body[:, 0])
-        ok = (rngs > 1.5) & (rngs < 40.0) & (np.abs(az) < 1.2)
-        pts.append(body.astype(np.float32))
-        msk.append(ok)
-    return poses, jnp.asarray(np.stack(pts)), jnp.asarray(np.stack(msk))
 
 
 def test_loop_closure_detection_on_circle():
